@@ -1,15 +1,18 @@
 #!/usr/bin/env python
 """Multi-device scaling measurement (BASELINE.md north star: iterations/s
-at 1 chip / N devices, >= 70% scaling efficiency target).
+at 1 device / N devices, >= 70% scaling efficiency target).
 
 Runs the jitted IPM step for a many-block SDP on meshes of increasing size
-and reports steady-state step times + scaling efficiency. On this
-environment only virtual CPU devices are available for multi-device runs
-(one physical TPU chip), so the numbers validate the sharding mechanics and
-collective overhead, not TPU ICI bandwidth; on a pod slice the same script
-measures the real thing.
+and reports steady-state step times + scaling efficiency, on whatever
+devices JAX sees. On the GPUs of one host (all-to-all NVLink) it measures
+the real collectives through NCCL:
 
-    JAX_PLATFORM_NAME=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+    python benchmarks/scaling.py
+
+Rehearsed on virtual CPU devices, it checks the sharding mechanics and the
+collective accounting only (the times say nothing about a GPU):
+
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python benchmarks/scaling.py
 """
 import json
@@ -28,9 +31,9 @@ _DTYPE_BYTES = {"f64": 8, "f32": 4, "bf16": 2, "f16": 2, "s32": 4, "u32": 4,
 
 def collective_bytes(compiled_text: str) -> dict:
     """Static collective-traffic accounting from compiled HLO: counts and
-    output bytes of every cross-device op. Makes pod behavior predictable
-    from a single chip (the virtual-CPU mesh shares 2 physical cores, so
-    wall-clock here says nothing about ICI; bytes/step do)."""
+    output bytes of every cross-device op. Bytes/step are a property of the
+    program, so a virtual-CPU rehearsal already gives them; wall-clock
+    there says nothing about the interconnect."""
     out = {}
     # HLO line shapes:
     #   `%name = f64[128,64]{1,0} all-gather(%operand), ...`
@@ -66,11 +69,11 @@ def schur_axis_cg(sizes):
     unsharded (XLA:CPU turned the partitioned vec@mat dot into a
     single-threaded strided loop fusion inside the CG while-loop).
 
-    NOTE on efficiency numbers: virtual CPU devices share this host's
-    physical cores (2 here), so wall-clock speedup is bounded by the core
-    count, not the device count — the measurement validates that sharded
-    step time does not DEGRADE and that per-device memory shrinks; real
-    scaling needs real chips (ICI).
+    NOTE on efficiency numbers: virtual CPU devices share the host's
+    physical cores, so there wall-clock speedup is bounded by the core
+    count, not the device count — such a run validates that sharded step
+    time does not DEGRADE and that per-device memory shrinks; real scaling
+    needs real GPUs.
     """
     import jax
     import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """ADMM (boundary-point) SDP solver.
 
-TPU-native implementation of the alternating-direction augmented-Lagrangian
+Implementation of the alternating-direction augmented-Lagrangian
 method of Wen, Goldfarb, Yin (Math. Prog. Comp. 2010), the reference's
 unshipped extra (`TBD/admm_sdp.jl:6-316`): same update scheme (y linear
 solve against a fixed A A^T Cholesky factor, S by eigenvalue projection onto
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..config import Options
 from ..ops.eigh import eigh_backend_for, eigh_jacobi
 from ..ops.linalg import chol_reg, cho_solve, sym
 from ..ops.schur import Aadj, Aop, schur_group, schur_lp
@@ -71,6 +72,7 @@ def solve_admm(
     chunk: int = 100,
     eigh_backend: str = "auto",
 ) -> ADMMResult:
+    eigh_backend = Options(eigh_backend=eigh_backend).validated().eigh_backend
     dtype = problem.b.dtype
     n = problem.n
     nlin = problem.nlin

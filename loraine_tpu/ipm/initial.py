@@ -24,9 +24,9 @@ EXPON = 3.0
 
 
 def initial_point(problem: SDPProblem, opts: Options) -> IPMState:
-    """Pure host-side (numpy) construction — on TPU every eager device op is
-    a separate tiny executable, so the start point is built in numpy and
-    shipped once."""
+    """Pure host-side (numpy) construction — on an accelerator every eager
+    device op is a separate tiny executable, so the start point is built in
+    numpy and shipped once."""
     dtype = problem.b.dtype
     n = problem.n
     b2 = 1.0 + np.abs(np.asarray(problem.b))

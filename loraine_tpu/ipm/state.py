@@ -29,7 +29,7 @@ class IPMState:
     S_lin: Optional[jax.Array]
     sigma: jax.Array  # scalar
     # double-double tails (precision='dd2': iterates stored as hi+lo pairs,
-    # the TPU-native stand-in for the reference's Float64x4-class tiers,
+    # the stand-in for the reference's Float64x4-class tiers,
     # `src/Solvers.jl:18` MySolver{T}; None in every other mode)
     X_lo: Optional[Tuple[jax.Array, ...]] = None
     S_lo: Optional[Tuple[jax.Array, ...]] = None

@@ -26,8 +26,8 @@ def cg_plain(
     two scalar reductions, three axpys). Used by the materialized small-n
     path on the SPLIT-preconditioned system Hp = Mli H Mli^T, which has the
     same Krylov iterates (hence iteration counts) as `pcg` on H with
-    M = Mli^T Mli — each op on TPU costs ~30 us of launch latency
-    regardless of size, so fewer ops is the whole game at small n."""
+    M = Mli^T Mli — at small n each op costs a kernel launch regardless
+    of size, so fewer ops is the whole game there."""
     threshold2 = tol * tol * jnp.vdot(b, b)
 
     def cond(c: _CGCarry):
@@ -68,7 +68,7 @@ def pcg(
 ) -> Tuple[jax.Array, jax.Array]:
     """Solve A x = b with preconditioned CG. Returns (x, iterations).
 
-    Latency-tuned for the TPU while-loop: ||r||^2 is carried (the stopping
+    Latency-tuned for the device while-loop: ||r||^2 is carried (the stopping
     test is a scalar compare, no norm kernel in cond), and the (rr, rz)
     reductions are fused into one stacked sum per iteration.
     """

@@ -1,6 +1,6 @@
 """Double-double (compensated float64-pair) arithmetic primitives.
 
-TPU-native equivalent of the reference's high-precision mode
+The equivalent of the reference's high-precision mode
 (MultiFloats `Float64x2`, `src/Solvers.jl:10`, `README.md:37-54`): a value
 is represented as an unevaluated sum ``hi + lo`` with ``|lo| <= ulp(hi)/2``,
 giving ~32 significant digits. Built from the classical error-free
@@ -13,10 +13,12 @@ Schur-solve residual (iterative refinement in twice working precision) when
 ("double-double for the Cholesky/residual path"), chosen after measuring
 the plain-f64 DIMACS floors (docs/precision.md).
 
-Note: correctness relies on IEEE-compliant f64. The x86/CPU backend and
-XLA:TPU's f64 emulation both preserve the required rounding behavior for
-add/mul (no fast-math reassociation in XLA by default); tests verify the
-identities against numpy.longdouble.
+Note: correctness relies on IEEE-compliant f64 with one rounding per
+add/mul (no fast-math reassociation in XLA by default). Whether a
+platform's compiler keeps the transforms exact is a row of the platform
+table (config.AUTO_BACKENDS 'dd_exact'): tests verify the identities on the
+CPU against numpy.longdouble, and chip_smoke.py checks them on the GPU
+against exact rationals.
 """
 from __future__ import annotations
 
@@ -57,8 +59,7 @@ def two_sum(a: jax.Array, b: jax.Array) -> DD:
     degraded to plain-f64 accuracy, tests/test_dd_linalg.py), which is
     exactly the cancellation two_sum exists to capture. Routing ``bb``
     through a value-identical but structurally distinct node disables the
-    pattern; on TPU (f64 emulated op-by-op, no such fold) it is an exact
-    no-op."""
+    pattern; where no such fold exists it is an exact no-op."""
     s = a + b
     bb = (s - a) + 0.0 * b
     e = (a - (s - bb)) + (b - bb)

@@ -6,14 +6,14 @@ past mu ~ 1e-14 the congruent spectrum eig(L_x' S L_x) = eig(XS) sinks
 below the f64 formation noise u64*||M|| and the scaling basis is noise
 (docs/precision.md "the f64 NT wall"). The reference does not have this
 wall because its whole pipeline, including `prepare_W`'s Cholesky/SVD, is
-type-generic over MultiFloats (`/root/reference/src/Solvers.jl:18`,
-`src/prepare_W.jl:41-45`: generic `svd` for `T != Float64`). The TPU-native
+type-generic over MultiFloats (Loraine.jl `src/Solvers.jl:18`,
+`src/prepare_W.jl:41-45`: generic `svd` for `T != Float64`). The batched
 equivalent is this module: the NT factorizations themselves in dd pairs.
 
-Design notes (TPU-first):
+Design notes:
 - dd scalars are (hi, lo) f64 pairs (ops/dd.py); every kernel here is
   branch-free, vectorized over the batch, and jit-safe.
-- `dd_matmul` keeps the heavy FLOPs MXU/GEMM-shaped: the hi x hi product
+- `dd_matmul` keeps the heavy FLOPs GEMM-shaped: the hi x hi product
   uses the Ozaki error-free slicing (ops/ozaki.py), the cross terms are
   plain f64 GEMMs (their own rounding is ~u64^2 of the total).
 - `dd_chol` is a column-recurrence (m sequential rounds of O(m^2)
@@ -29,8 +29,8 @@ Design notes (TPU-first):
 No data-dependent Python control flow: regularization/fallback decisions
 are jnp.where selects on an `ok` flag computed alongside (the caller falls
 back to the f64 NT path per block group when the dd factorization reports
-failure). Denominators are sanitized before every divide (TPU f64
-emulation mishandles inf through where()).
+failure). Denominators are sanitized before every divide, so the
+not-taken branch of a where() never holds an inf.
 """
 from __future__ import annotations
 
@@ -145,7 +145,7 @@ def dd_sym(x: DD) -> DD:
 def dd_matmul(A: DD, B: DD, bits: int = 106) -> DD:
     """(A.hi + A.lo) @ (B.hi + B.lo) in dd. The hi x hi product is the
     Ozaki-sliced exact GEMM stack; the cross terms are plain f64 GEMMs
-    (relative error u64 on terms that are already u64-small). MXU-shaped
+    (relative error u64 on terms that are already u64-small). GEMM-shaped
     throughout."""
     r = acc_matmul(A.hi, B.hi, bits=bits)
     cross = A.hi @ B.lo + A.lo @ B.hi
@@ -293,8 +293,7 @@ def _dd_jacobi_impl(M: DD, V0: DD, perm_tab: jax.Array, eye_tab: jax.Array,
     f64-class accuracy — across scatter, gather+broadcast, and unrolled
     variants alike — while products lowered through dot_general (the
     Ozaki slices inside dd_matmul, and dd_add on GEMM outputs) keep full
-    dd accuracy under jit on every backend. On TPU the matmul form is
-    also the MXU-native choice. J entries are exact (0/1 masks scale c, s
+    dd accuracy under jit on every backend. J entries are exact (0/1 masks scale c, s
     by multiplication), so the transform inherits dd_matmul's ~2^-104
     accuracy.
 

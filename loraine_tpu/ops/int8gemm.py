@@ -1,28 +1,25 @@
-"""f64-accurate matrix multiply on the int8 MXU (integer Ozaki scheme).
+"""f64-accurate matrix multiply from int8 GEMMs (integer Ozaki scheme).
 
-TPU hardware has no f64 unit: XLA emulates f64 GEMMs in software on the
-VPU, which makes them the dominant cost of large-block IPM iterations.
-The MXU, however, multiplies int8 with EXACT int32 accumulation at very
-high throughput. This module reconstructs f64-accurate products from
-exact integer partial products:
+Integer tensor cores multiply int8 with EXACT int32 accumulation at far
+higher throughput than f64 units. This module reconstructs f64-accurate
+products from exact integer partial products:
 
     A's row i is split into slices  A = sum_p sigma_i 2^(-6p) Q_p[i,:]
     with Q_p int8, |Q_p| <= 64 (6-bit payload; exponent-aligned per row).
     Likewise B per column. Every pairwise product Q_p(A) @ Q_q(B) is an
     exact int32 GEMM (|prod| <= 2^12, k <= 2^18 terms -> < 2^31).
-    Partials with equal t = p+q share the 2^(-6t) weight, so they are
-    summed in int32 first; the weighted f64 recombination is a handful of
-    elementwise FMAs on the VPU.
+    Partials with equal t = p+q share the 2^(-6t) weight; the weighted f64
+    recombination is a handful of elementwise multiply-adds.
 
 Accuracy: slices cover 6*s bits per operand; with the default s (enough
 for > 54 bits) the result is at least as accurate as a true fused f64
 GEMM (error 2^-60 * |A||B| from truncation, below f64's own 2^-53 rounding
-of the inputs' products). This is the integer-MXU variant of the Ozaki
+of the inputs' products). This is the integer variant of the Ozaki
 error-free transform used in ops/ozaki.py for the double-double mode.
 
-Intended use: drop-in for large-m f64 GEMMs on TPU (NT-scaling sandwiches,
-Schur contractions). On CPU it is slower than native f64 — gate by
-backend.
+Use: the opt-in ``gemm_backend='int8'`` for the rank-1 Schur assembly's
+large GEMMs. It wins only where int8 GEMMs outrun native f64 by more than
+the ~s^2/2 partial products cost; no such win is measured yet.
 """
 from __future__ import annotations
 
@@ -32,7 +29,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-__all__ = ["matmul_f64_mxu", "INT8_BETA"]
+__all__ = ["matmul_f64_int8", "INT8_BETA"]
 
 INT8_BETA = 6  # payload bits per slice: |q| <= 64 fits int8 with headroom
 _TINY = 2.0**-1000
@@ -43,8 +40,7 @@ def _slice_int8(X: jax.Array, axis: int, s: int):
 
     Returns (slices int8 [s, ...], scale f64 broadcastable to X) with
     X ≈ sum_p scale * 2^(-6(p+1)) * slices[p] (residual < scale*2^(-6s)/2).
-    Exact powers of two come from repeated squaring (ozaki.pow2_int) —
-    frexp/ldexp do not lower on TPU's emulated f64.
+    Exact powers of two come from repeated squaring (ozaki.pow2_int).
     """
     from .ozaki import ceil_log2, pow2_int
 
@@ -67,11 +63,11 @@ def _num_slices(bits: int) -> int:
 
 
 @partial(jax.jit, static_argnames=("bits",))
-def matmul_f64_mxu(A: jax.Array, B: jax.Array, bits: int = 55) -> jax.Array:
+def matmul_f64_int8(A: jax.Array, B: jax.Array, bits: int = 55) -> jax.Array:
     """A [..., m, k] @ B [..., k, n] in f64-equivalent accuracy, with all
-    heavy FLOPs as int8 x int8 -> int32 MXU GEMMs."""
+    heavy FLOPs as int8 x int8 -> int32 GEMMs."""
     if A.dtype != jnp.float64 or B.dtype != jnp.float64:
-        raise TypeError("matmul_f64_mxu expects f64 operands")
+        raise TypeError("matmul_f64_int8 expects f64 operands")
     k = A.shape[-1]
     if k > (1 << 17):
         raise ValueError("contraction too long for int32 accumulation")

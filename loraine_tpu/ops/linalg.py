@@ -4,8 +4,10 @@ All ops are jit-safe (static shapes, bounded control flow) and batched over a
 leading block axis where relevant. Regularized Cholesky reproduces the
 reference's retry loops (`src/prepare_W.jl:5-26` for X/S with 1e-5 shifts;
 `src/predictor_corrector.jl:55-97` for the Schur matrix with 1e-4 shifts) as
-bounded ``lax.while_loop``s keyed on NaN detection — on TPU a failed Cholesky
-yields NaNs rather than raising, which is exactly the signal we need.
+bounded ``lax.while_loop``s keyed on NaN detection: JAX's Cholesky (LAPACK
+potrf on the CPU, cuSOLVER potrf on GPUs) returns an all-NaN factor for a
+batch element whose factorization reports failure, rather than raising,
+which is exactly the signal we need.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from jax import lax
 __all__ = [
     "sym",
     "chol_blocked",
-    "chol_backend_for",
     "chol_reg",
     "cho_solve",
     "tri_solve",
@@ -39,13 +40,11 @@ def sym(M: jax.Array) -> jax.Array:
 def chol_blocked(M: jax.Array, base: int = 128, shard=None) -> jax.Array:
     """Batched lower Cholesky via right-looking blocked elimination.
 
-    Why: XLA's TPU f64 Cholesky is the dominant per-iteration cost of the
-    direct IPM path at large n (measured on 1x v5e: 576 ms for one n=800
-    factorization, while an 800^3 f64 GEMM is ~4 ms) — its panel recursion
-    scalarizes badly under f64 emulation. This version keeps the sequential
-    part at `base` size (where XLA's factorization is cheap) and casts all
-    O(n^3) work as f64 GEMMs / multi-RHS triangular solves, which TPU
-    handles at full emulated-GEMM speed:
+    Why: the factorization's sequential panel recursion is latency-bound,
+    while GEMMs run at the device's full rate. This version keeps the
+    sequential part at `base` size and casts all O(n^3) work as f64 GEMMs /
+    multi-RHS triangular solves; the same panel loop is also the
+    distributed factorization (``shard`` below):
 
         for each panel k:   D = T[:b,:b],  R = T[b:,:b]
             L_kk = chol(D)
@@ -104,18 +103,6 @@ class CholResult(NamedTuple):
     ok: jax.Array  # bool scalar: all factorizations succeeded
 
 
-def chol_backend_for(backend: str, n: int) -> str:
-    """Resolve the 'auto' Cholesky backend: mixed-precision panels on TPU
-    for matrices large enough that XLA's f64 factorization latency dominates
-    (measured crossover well below 192 on v5e; tiny blocks stay f64 — the
-    mixed path's extra ops cost more than they save there)."""
-    if backend == "auto":
-        if jax.default_backend() == "tpu" and n >= 192:
-            return "mixed"
-        return "f64"
-    return backend
-
-
 def chol_reg(
     M: jax.Array, eps, max_tries: int = 1000, backend: str = "f64",
     shard=None,
@@ -128,10 +115,10 @@ def chol_reg(
     batch so only failing blocks are shifted. ``eps`` may be a Python float
     or a traced scalar (used for the relative H shift in the IPM step).
 
-    ``backend``: 'f64' (blocked f64 factorization), 'mixed' (f32 MXU panels
-    + f64 Newton refinement, ops/mixed_chol.py), or 'auto' (size/backend
-    heuristic via `chol_backend_for`). The mixed path falls back to f64
-    per panel on ill-conditioning, so NaN/shift semantics are identical.
+    ``backend``: 'f64' (blocked f64 factorization) or 'mixed' (f32 panels
+    + f64 Newton refinement, ops/mixed_chol.py; options resolve 'auto' in
+    config.py). The mixed path falls back to f64 per panel on
+    ill-conditioning, so NaN/shift semantics are identical.
     """
     m = M.shape[-1]
     eye = jnp.eye(m, dtype=M.dtype)
@@ -141,10 +128,12 @@ def chol_reg(
         # variant is not plumbed for sharding (its panels are replicated
         # anyway, so the f64 path is the conservative choice here)
         _chol = lambda Mc: chol_blocked(Mc, shard=shard)
-    elif chol_backend_for(backend, m) == "mixed":
+    elif backend == "mixed":
         from .mixed_chol import chol_mixed_blocked as _chol
-    else:
+    elif backend == "f64":
         _chol = chol_blocked
+    else:
+        raise ValueError(f"chol_reg backend must be 'f64' or 'mixed', got {backend!r}")
 
     def attempt(Mc):
         L = _chol(Mc)
@@ -185,11 +174,11 @@ def cho_solve(L: jax.Array, b: jax.Array) -> jax.Array:
 def tri_inv(L: jax.Array, base: int = 128, shard=None) -> jax.Array:
     """Explicit inverse of a lower-triangular matrix by blocked doubling.
 
-    Why: on TPU a triangular solve with a single RHS is a sequential blocked
-    algorithm (~12 ms at n=800 f64 through XLA), and the IPM's direct path
-    does FOUR of them per iteration against the same factor (predictor +
-    corrector, each with one iterative-refinement pass). Inverting L once
-    turns every solve into two GEMVs (n^2 f64, microseconds). The inversion
+    Why: a triangular solve with a single RHS is a sequential blocked
+    algorithm, and the IPM's direct path does FOUR of them per iteration
+    against the same factor (predictor + corrector, each with one
+    iterative-refinement pass). Inverting L once turns every solve into two
+    GEMVs. The inversion
     itself is one batched multi-RHS triangular solve on the diagonal blocks
     plus log2(n/base) levels of batched GEMMs:
 
@@ -275,10 +264,8 @@ def eigmin_chol(M: jax.Array, iters: int = 45) -> jax.Array:
     bracket's lower end, so steplengths derived from it are always safe
     (never longer than the exact ones).
 
-    Rationale: XLA's f64 QDWH eigendecomposition takes minutes to COMPILE
-    on TPU for large m, while Cholesky compiles in seconds; this routine
-    reuses the Cholesky executable ~45 times instead. Precision after k
-    steps: ||M||_inf * 2^-k.
+    Rationale: needs no eigensolver at all — ~45 batched Cholesky
+    factorizations instead. Precision after k steps: ||M||_inf * 2^-k.
     """
     m = M.shape[-1]
     eye = jnp.eye(m, dtype=M.dtype)

@@ -1,25 +1,23 @@
-"""Mixed-precision blocked Cholesky: f32 MXU panels + f64 Newton refinement.
+"""Mixed-precision blocked Cholesky: f32 panels + f64 Newton refinement.
 
-Why: XLA's f64 Cholesky on TPU is latency-bound in its sequential panel
-recursion under f64 emulation (measured on 1x v5e: 57 ms at n=800, 250-310 ms
-at n=3240) while the f32 factorization rides the MXU (3-4 ms at n=3240,
-~75x faster). The IPM's direct path factors the Schur matrix H every
-iteration and the NT scaling factors X every iteration
-(reference `src/predictor_corrector.jl:55-97`, `src/prepare_W.jl:5-26`) —
-together the dominant per-iteration cost at large n/m.
-
-This module factors in f64 accuracy at f32 speed:
+Why: the IPM's direct path factors the Schur matrix H every iteration and
+the NT scaling factors X every iteration (reference
+`src/predictor_corrector.jl:55-97`, `src/prepare_W.jl:5-26`) — together a
+large share of the per-iteration cost at large n/m. Where an f32 panel
+factorization is much cheaper than an f64 one, this module factors to f64
+accuracy at close to f32 cost (opt-in: chol_backend='mixed'; no measured
+win on a GPU with native f64 yet):
 
   per 128-panel k of a right-looking blocked elimination
     D = T[:b,:b]                       (f64, trailing-updated)
-    L32  = chol(f32(D))                 f32 MXU panel factorization
+    L32  = chol(f32(D))                 f32 panel factorization
     Li32 = triinv(L32)                  f32
     Newton-refine to f64 (`passes` times, all panel-sized GEMMs):
       E  = D - L L^T                    (f64)
       F  = Li32 E Li32^T                (f32; absolute error u32*sqrt(k)|F|)
       L += L32 @ phi(F)                 (f64 GEMM; phi = tril + diag/2)
     and refine the inverse: Li <- Li (2I - L Li)   (f64 GEMMs)
-    fallback (lax.cond, single-branch execution on TPU): if the f32 panel
+    fallback (lax.cond, only the taken branch executes): if the f32 panel
     was indefinite-in-f32 or the refinement did not contract (kappa(D)
     beyond ~1/u32), factor the panel with XLA's f64 Cholesky instead —
     bitwise the conservative path, paying its latency only for the panels
@@ -27,8 +25,10 @@ This module factors in f64 accuracy at f32 speed:
   off-diagonal panel: L_rk = R @ Li_kk^T            (one f64 GEMM)
   trailing update:    T   -= L_rk L_rk^T            (one f64 GEMM)
 
-All O(n^3) work is f64 GEMMs (fast emulated path); all sequential latency
-is f32-panel-sized. NaN semantics match `jnp.linalg.cholesky`: a panel that
+All O(n^3) work is f64 GEMMs; all sequential latency is f32-panel-sized.
+The one f32 GEMM (the Newton residual F) asks for Precision.HIGHEST, so a
+GPU never runs it as TF32 (whose ~1e-3 relative error would stall the
+refinement). NaN semantics match `jnp.linalg.cholesky`: a panel that
 is indefinite in f64 yields NaNs that propagate through later panels, so
 `chol_reg`'s NaN-keyed shift loop works unchanged.
 
@@ -54,6 +54,11 @@ __all__ = ["panel_chol_mixed", "chol_mixed_blocked"]
 # factor's residual is ~|F|^2 ~ 1e-14-class. Above the threshold the panel
 # recomputes in f64.
 _PANEL_ACCEPT = 1e-7
+
+
+def _dot32(a: jax.Array, b: jax.Array) -> jax.Array:
+    """Batched f32 matmul at full f32 precision (never TF32)."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 
 def _phi(F: jax.Array) -> jax.Array:
@@ -83,7 +88,8 @@ def panel_chol_mixed(D: jax.Array, passes: int = 3):
         Fmax = jnp.zeros((), D.dtype)
         for _ in range(passes):
             E = D - L @ jnp.swapaxes(L, -1, -2)
-            F = (Li32 @ E.astype(f32) @ jnp.swapaxes(Li32, -1, -2)).astype(D.dtype)
+            F = _dot32(_dot32(Li32, E.astype(f32)), jnp.swapaxes(Li32, -1, -2))
+            F = F.astype(D.dtype)
             Fmax = jnp.max(jnp.abs(F))
             L = L + L @ _phi(F)
         # refine the inverse to f64: Li <- Li (2I - L Li), twice

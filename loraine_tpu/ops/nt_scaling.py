@@ -11,9 +11,8 @@ Reference math (`src/prepare_W.jl:28-94`): per block,
     Si  = S^{-1}
     DDsi = diag(G^T S G)^{-1/2}
 
-TPU mapping: f64 Cholesky is latency-bound (~66 us per column on 1x v5e:
-the sequential panel recursion dominates, not flops), so the default 'eigh'
-method factors ONLY X — V and D^2 come from eigh(L_x^T S L_x) (the same V
+Default 'eigh' method: a Cholesky is a sequential panel recursion, so it
+factors ONLY X — V and D^2 come from eigh(L_x^T S L_x) (the same V
 as svd(L_s^T L_x), since L_x^T S L_x = (L_s^T L_x)^T (L_s^T L_x)), S's
 positive-definiteness is read off the congruent eigenvalues (lam > 0 <=>
 S PD, Sylvester), and S^{-1} = G D^{-1} G^T exactly by the NT identities —
@@ -29,21 +28,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
+from .eigh import eigh_by_backend as _eigh
 from .linalg import chol_reg, tri_solve, sym
 
 __all__ = ["NTScaling", "nt_scale", "lin_scale"]
-
-
-def _eigh(M: jax.Array, backend: str):
-    resolved = eigh_backend_for(backend, M.shape[-1])
-    if resolved == "jacobi":
-        return eigh_jacobi(M)
-    if resolved == "mixed":
-        return eigh_mixed(M)
-    if resolved == "pallas":
-        return eigh_mixed(M, seed="pallas")
-    return jnp.linalg.eigh(M)
 
 
 class NTScaling(NamedTuple):

@@ -1,8 +1,8 @@
 """Accurate (double-double class) matrix multiply via the Ozaki scheme.
 
 Computes ``A @ B`` to ~``bits`` significant bits using only STANDARD f64
-GEMMs plus elementwise double-double accumulation — the TPU-native way to
-get high-precision matmul: all heavy FLOPs stay MXU/GEMM-shaped instead of
+GEMMs plus elementwise double-double accumulation — high-precision matmul
+whose heavy FLOPs all stay GEMM-shaped instead of
 scalarizing into software multiprecision (the reference reaches the same
 capability through MultiFloats `Float64xN` scalars, `src/Solvers.jl:10`).
 
@@ -58,10 +58,10 @@ def pow2_int(e: jax.Array, dtype=jnp.float64) -> jax.Array:
     to zero (measured: 2**-1022 * 0.5 == 0.0 on CPU), so subnormal powers
     of two are not representable at runtime.
 
-    Why not frexp/ldexp: on TPU the f64 X64 rewriter cannot lower frexp's
-    s64 bitcast (measured: compile error), and exp2 on emulated f64 is not
-    guaranteed to hit exact powers of two. No value here ever becomes inf
-    (the TPU f64 emulation mishandles inf through where): the negative
+    Why not frexp/ldexp: they need an f64 <-> s64 bitcast that not every
+    XLA backend lowers, and exp2 is not guaranteed to hit exact powers of
+    two. No value here ever becomes inf
+    (an inf in a not-taken where() branch is fragile): the negative
     branch accumulates exact 0.5-powers directly (never forming 2**k for
     k > 1023 and then dividing), and the positive branch is clamped below
     2**1024.
@@ -107,8 +107,8 @@ def slice_operand(X: jax.Array, axis: int, beta: int, s: int):
 
     Extraction is round-to-grid by exact power-of-two divide (q*sigma with
     integer |q| <= 2^(beta-1)): unlike the classic add-shift trick it has
-    no sub-grid boundary case for negative values, and it lowers on TPU's
-    emulated f64 (no frexp/ldexp)."""
+    no sub-grid boundary case for negative values, and it needs no
+    frexp/ldexp."""
     mx = jnp.max(jnp.abs(X), axis=axis, keepdims=True)
     e = ceil_log2(jnp.maximum(mx, _TINY))  # 2**e in [2*mx, 4*mx]
     slices = []

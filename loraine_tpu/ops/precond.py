@@ -12,7 +12,7 @@ ttau_i is a scalar surrogate for the tail spectrum of W_i (selected by
 ``aamat``). H_alpha^{-1} is applied with Sherman-Morrison-Woodbury through
 the small Schur matrix S = V^T AAAATtau^{-1} V (+ I).
 
-TPU-first implementation notes: the per-block eigendecompositions are one
+Implementation notes: the per-block eigendecompositions are one
 batched ``eigh`` per block group; 2 W_0 + U U^T shares W's eigenbasis
 (eigenvalues [2 lam_tail, lam_top + ttau]) so Z is a Cholesky of a
 reconstructed congruence, and all SMW pieces are batched GEMMs. For rank-one
@@ -28,19 +28,11 @@ import jax
 import jax.numpy as jnp
 
 from ..problem import SDPProblem
-from .eigh import eigh_backend_for, eigh_jacobi, eigh_mixed
+from .eigh import eigh_by_backend as _eigh
 from .linalg import chol_reg, cho_solve, sym, tri_inv
 from .nt_scaling import NTScaling
 from .schur import Aadj, Aop
 
-
-def _eigh(M: jax.Array, backend: str):
-    resolved = eigh_backend_for(backend, M.shape[-1])
-    if resolved == "jacobi":
-        return eigh_jacobi(M)
-    if resolved == "mixed":
-        return eigh_mixed(M)
-    return jnp.linalg.eigh(M)
 
 __all__ = [
     "BetaPrecond", "AlphaPrecond", "AlphaPrecondDense", "prep_beta",

@@ -6,7 +6,7 @@ The Schur ("Hessian") matrix of the IPM normal equations is
              + (C_lin diag(x_lin / s_lin) C_lin^T)[j,k]
 
 The reference assembles this with a three-regime sparse loop
-(`src/makeBBBB.jl:24-218`); on TPU we use two batched GEMM contractions per
+(`src/makeBBBB.jl:24-218`); here two batched GEMM contractions per
 block group (dense data) or the rank-one compression
 
     H = sum_blocks ((B G)(B G)^T) ** 2        (elementwise square)
@@ -27,10 +27,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..problem import BlockGroup
 from .dd import DD, dd_add, dd_mul_f64, dd_sum, two_prod, two_sum
 from .ozaki import acc_matmul, acc_matvec
+
+# f32 products of the mixed assembly run at full f32 precision, never TF32
+_HIGHEST = lax.Precision.HIGHEST
 
 __all__ = [
     "Aop",
@@ -147,15 +151,15 @@ def schur_group(
     Sparse:  gather-based, see _schur_sparse.
 
     ``gemm_backend='int8'`` routes the rank-1 path's two large GEMMs (the
-    FLOP bulk of maxG11/thetaG11-class assembly) through the int8-MXU Ozaki
-    GEMM (ops/int8gemm.py) instead of emulated f64.
+    FLOP bulk of maxG11/thetaG11-class assembly) through the int8 Ozaki
+    GEMM (ops/int8gemm.py) instead of plain f64 GEMMs.
     """
     if group.is_rank1:
         if gemm_backend == "int8":
-            from .int8gemm import matmul_f64_mxu
+            from .int8gemm import matmul_f64_int8
 
-            BG = matmul_f64_mxu(group.B, G)
-            P = matmul_f64_mxu(BG, jnp.swapaxes(BG, -1, -2))
+            BG = matmul_f64_int8(group.B, G)
+            P = matmul_f64_int8(BG, jnp.swapaxes(BG, -1, -2))
         else:
             BG = jnp.einsum("bjm,bmp->bjp", group.B, G)
             P = jnp.einsum("bjp,bkp->bjk", BG, BG)
@@ -164,12 +168,10 @@ def schur_group(
         return _schur_sparse(group, W)
     nb, n, m, _ = group.A.shape
     # Large dense data: chunk the T = W A W intermediate over constraints.
-    # Unchunked, T is [nb, n, m, m]; at tru9 scale (n=3240, m=152) the
-    # f64-emulation splits (X64SplitHigh/Low f32 pairs + bf16 dot passes)
-    # materialize ~8 stacked copies of it and the compile OOMs HBM
-    # (measured: 24.5G needed vs 15.75G on v5e). Chunked, the per-chunk
-    # footprint is ~J*m^2 while every GEMM stays MXU-sized; the final
-    # contraction is a [J, m^2] x [m^2, n] GEMM per chunk.
+    # Unchunked, T is [nb, n, m, m] (at tru9 scale, n=3240 and m=152, that
+    # is 600 MB of f64 per copy, and the einsum chain keeps several).
+    # Chunked, the per-chunk footprint is ~J*m^2 while every GEMM stays
+    # large; the final contraction is a [J, m^2] x [m^2, n] GEMM per chunk.
     if nb * n * m * m > (1 << 24):
         return _schur_dense_chunked(group, W)
     T = jnp.einsum("bpa,bjaq->bjpq", W, group.A)
@@ -183,11 +185,10 @@ def _schur_dense_chunked(group: BlockGroup, W: jax.Array) -> jax.Array:
     flattened against the full data stack. Cost identical to the fused
     path (n m^3 + n^2 m^2 MACs); peak temp memory drops from O(n m^2) to
     O(J m^2). Replaces the reference's unchunked per-block loops
-    (`src/makeBBBB.jl:86-98`) at sizes where even one [n, m, m] f64
-    temporary exceeds HBM through the emulation splits."""
+    (`src/makeBBBB.jl:86-98`) at sizes where [n, m, m] f64 temporaries
+    crowd device memory."""
     nb, n, m, _ = group.A.shape
-    # ~2^22 elements per chunk (f64): ~32 MB pre-split, ~128-256 MB through
-    # the emulation copies — comfortably inside v5e HBM headroom
+    # ~2^22 elements (32 MB of f64) per chunk
     J = int(min(n, max(8, (1 << 22) // max(1, nb * m * m))))
     nch = -(-n // J)
     npad = nch * J
@@ -210,7 +211,7 @@ def _schur_dense_chunked(group: BlockGroup, W: jax.Array) -> jax.Array:
 def _schur_sparse(group: BlockGroup, W: jax.Array) -> jax.Array:
     """Sparse-data Schur contribution via batched gathers + rank-s outer
     products, replacing the reference's scalar sparse loops
-    (`src/makeBBBB.jl:39-218`) with a TPU-shaped pipeline:
+    (`src/makeBBBB.jl:39-218`) with a batched pipeline:
 
         T_j = W A_j W = sum_t v_t W[:, r_t] W[c_t, :]     (rank-s outer sum)
         H[j, k] = <A_k, T_j> = sum_u v_u T_j[r_u, c_u]    (gather + reduce)
@@ -246,52 +247,34 @@ def _schur_sparse(group: BlockGroup, W: jax.Array) -> jax.Array:
 
 
 def schur_group_mixed(group: BlockGroup, W: jax.Array, G: jax.Array) -> jax.Array:
-    """f32-MXU Schur contribution — the mixed-precision assembly phase
-    (assembly_precision='auto', used while total DIMACS > 1e-3 and swapped
+    """f32 Schur contribution — the mixed-precision assembly phase
+    (assembly_precision='f32', used while total DIMACS > 1e-3 and swapped
     for the exact f64 path afterwards; `ipm/step.py` / `ipm/solver.py`).
 
-    Rationale (measured on 1x v5e, round 4): emulated-f64 GEMMs at Schur
-    shapes run ~1.4 TF/s while f32 MXU GEMMs run ~14 TF/s; the assembled
-    H's relative error is ~1e-6 (f32 accumulate class) — below the
+    Rationale: where f32 GEMMs are much cheaper than f64 ones, the assembled
+    H's relative error of ~1e-6 (f32 accumulate class) is below the
     backward-error level the IPM already tolerates mid-run from its CG
-    tolerance schedule (tol_cg 1e-2 -> 1e-7). Reference cost profile this
-    attacks: `src/makeBBBB.jl:24-36`.
+    tolerance schedule (tol_cg 1e-2 -> 1e-7). Every f32 product asks for
+    Precision.HIGHEST, so a GPU never runs it as TF32 (~1e-3 relative
+    error). Reference cost profile this attacks: `src/makeBBBB.jl:24-36`.
 
     Per storage:
-      rank-1:  stays EXACT f64 — measured (maxG11, round 4): assembly is
-               only ~6% of the rank-1 step (NT scaling and the DIMACS
-               errors dominate), while the f32 H((b'Wb)^2 squares the
-               f32 error) stalled convergence above the handover
-               threshold. No win, real risk — excluded.
-      sparse:  exact f64 gather/outer-product T2 stage (cheap), then ONE
-               f32 GEMM against the flattened data copy (A_flat32) instead
-               of the f64 gather pipeline — 437 -> ~35 ms at tru9 scale.
-               Falls back to the exact path when A_flat32 was too big to
-               build.
+      rank-1:  stays EXACT f64 — assembly is a small share of the rank-1
+               step, while the f32 H((b'Wb)^2 squares the f32 error)
+               stalled convergence above the handover threshold.
+      sparse:  stays EXACT f64 (see below).
       dense:   the chunked contraction with f32 operands.
     """
     f32, f64 = jnp.float32, W.dtype
     if group.is_rank1:
         return schur_group(group, W, G)
     if group.is_sparse:
-        # ROUND-5 BISECTION (scripts/bisect_mixed.py, real v5e): the
-        # A_flat32 GEMM fast path (_schur_sparse_mixed) deterministically
-        # kills the TPU worker at iteration 13 of a tru9-class solve —
-        # value-triggered, only inside the full chunk graph (the kernel
-        # alone is clean with the same W; same-state re-dispatch is clean;
-        # host re-upload of the continuation state still crashes; removing
-        # every Pallas kernel still crashes; an optimization barrier does
-        # not help) — an XLA:TPU codegen/runtime fault we can only
-        # sidestep. The f32 SECOND-GATHER formulation
-        # (_schur_sparse_f32gather, no 300 MB operand) survived 20
-        # straight K=1 iterations but ALSO killed the worker later in a
-        # full solve (iterations 17-24, DIMACS ~1e-3 regime) — both f32
-        # sparse formulations fault in-chunk at late-phase values — as
-        # does the LP-mixed chunk once re-dispatched past its natural
-        # mixed_off stop (ROADMAP #1 has the full fact chain), which is
-        # why assembly_precision defaults to 'f64'. Sparse groups keep
-        # the exact f64 gather path even under explicit 'auto'/'f32';
-        # both f32 formulations are kept for the bisect harness only.
+        # Two f32 sparse formulations exist (_schur_sparse_mixed against a
+        # flattened f32 data copy, _schur_sparse_f32gather with an f32
+        # second gather); both killed the runtime of the accelerator this
+        # solver was first built for, mid-solve, so sparse groups keep the
+        # exact f64 gather path until a measurement on the current device
+        # earns them a place.
         return _schur_sparse(group, W)
     nb, n, m, _ = group.A.shape
     W32 = W.astype(f32)
@@ -303,10 +286,10 @@ def schur_group_mixed(group: BlockGroup, W: jax.Array, G: jax.Array) -> jax.Arra
     Aflat = jnp.moveaxis(group.A, 1, 0).reshape(n, -1).astype(f32)
 
     def body(Ac):
-        T = jnp.einsum("bpa,bjaq->bjpq", W32, Ac)
-        T = jnp.einsum("bjpq,bqr->bjpr", T, W32)
+        T = jnp.einsum("bpa,bjaq->bjpq", W32, Ac, precision=_HIGHEST)
+        T = jnp.einsum("bjpq,bqr->bjpr", T, W32, precision=_HIGHEST)
         Tflat = jnp.moveaxis(T, 1, 0).reshape(J, -1)
-        return (Tflat @ Aflat.T).astype(f64)
+        return jnp.matmul(Tflat, Aflat.T, precision=_HIGHEST).astype(f64)
 
     Hrows = jax.lax.map(body, Achunks)
     return Hrows.reshape(npad, n)[:n]
@@ -386,8 +369,8 @@ def _schur_sparse_f32gather(group: BlockGroup, W: jax.Array) -> jax.Array:
     dominant second gather (T2 rows at the COO flat indices) and the
     final contraction in f32 — half the gather bytes of the exact path,
     no 300 MB flattened operand. Structurally identical to _schur_sparse
-    (same gather pipeline), so it avoids the in-chunk XLA:TPU fault of
-    the A_flat32 GEMM formulation (see schur_group_mixed)."""
+    (same gather pipeline). Not dispatched by the solver (see
+    schur_group_mixed)."""
     nb, n, s = group.Avals.shape
     m = group.m
     J = int(min(n, max(8, (1 << 25) // max(1, nb * n * s))))
@@ -411,7 +394,8 @@ def _schur_sparse_f32gather(group: BlockGroup, W: jax.Array) -> jax.Array:
         T32 = T2.reshape(nb, J, m * m).astype(jnp.float32)
         G = jax.vmap(lambda t2, fk: t2[:, fk.reshape(-1)])(T32, flatk)
         return jnp.einsum(
-            "bjks,bks->jk", G.reshape(nb, J, n, s), vals32
+            "bjks,bks->jk", G.reshape(nb, J, n, s), vals32,
+            precision=_HIGHEST,
         ).astype(W.dtype)
 
     Hrows = jax.lax.map(body, (rows_c, cols_c, vals_c))  # [nch, J, n]
@@ -420,8 +404,9 @@ def _schur_sparse_f32gather(group: BlockGroup, W: jax.Array) -> jax.Array:
 
 def _schur_sparse_mixed(group: BlockGroup, W: jax.Array) -> jax.Array:
     """Sparse-data mixed assembly: T2 rows from exact f64 gathers/outer
-    products (the cheap stage), H rows from one f32 MXU GEMM per chunk
-    against A_flat32 (replacing the measured-dominant f64 gather stage)."""
+    products (the cheap stage), H rows from one f32 GEMM per chunk
+    against A_flat32 (replacing the f64 gather stage). Not dispatched by
+    the solver (see schur_group_mixed)."""
     nb, n, s = group.Avals.shape
     m = group.m
     J = int(min(n, max(8, (1 << 25) // max(1, nb * n * s))))
@@ -442,7 +427,8 @@ def _schur_sparse_mixed(group: BlockGroup, W: jax.Array) -> jax.Array:
         Wc = jax.vmap(lambda Wb, idx: Wb[idx])(W, c_c)
         T2 = jnp.einsum("bjtp,bjt,bjtq->bjpq", Wa, v_c, Wc)
         T32 = T2.reshape(nb, J, m * m).astype(jnp.float32)
-        return jnp.einsum("bjk,bnk->jn", T32, Af32).astype(W.dtype)
+        return jnp.einsum("bjk,bnk->jn", T32, Af32,
+                          precision=_HIGHEST).astype(W.dtype)
 
     Hrows = jax.lax.map(body, (rows_c, cols_c, vals_c))  # [nch, J, n]
     return Hrows.reshape(npad, n)[:n]
@@ -452,7 +438,8 @@ def schur_lp_mixed(C_lin: jax.Array, w: jax.Array) -> jax.Array:
     """LP-cone Schur block with the big GEMM in f32 (the weighting stays
     f64 so the X/S scaling magnitudes are carried exactly)."""
     Cw = (C_lin * w[None, :]).astype(jnp.float32)
-    return (Cw @ C_lin.T.astype(jnp.float32)).astype(C_lin.dtype)
+    return jnp.matmul(Cw, C_lin.T.astype(jnp.float32),
+                      precision=_HIGHEST).astype(C_lin.dtype)
 
 
 def Aop_dd(group: BlockGroup, M: jax.Array, Mlo=None) -> DD:
@@ -509,7 +496,7 @@ def schur_group_dd(
     """Schur contribution in double-double (the high-precision mode's
     replacement for `schur_group`): every GEMM is an Ozaki-sliced exact
     product, accumulations are dd. Cost is a constant factor (~15-20 GEMMs
-    per GEMM) over the f64 path, all MXU-shaped.
+    per GEMM) over the f64 path, all GEMM-shaped.
 
     ``W_lo``/``G_lo``: dd low words of the NT quantities (native dd NT
     scaling, nt_precision='dd'). Their first-order contributions

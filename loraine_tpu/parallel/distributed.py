@@ -1,7 +1,7 @@
 """Multi-host runtime glue (greenfield; the reference is single-process,
 SURVEY section 2 row 20).
 
-Usage on a TPU pod slice (one process per host)::
+Usage on a multi-host GPU cluster (one process per host)::
 
     import loraine_tpu as lt
     from loraine_tpu.parallel import distributed, auto_mesh, shard_problem
@@ -13,7 +13,7 @@ Usage on a TPU pod slice (one process per host)::
 
 Everything inside the jitted step is sharding-annotated data + XLA
 collectives (psum over block contributions, all-gathers of Schur rows), so
-the same program spans hosts over ICI/DCN; the host loop's scalar stats are
+the same program spans hosts over NVLink/the network; the host loop's scalar stats are
 replicated and identical on every process.
 """
 from __future__ import annotations
@@ -33,8 +33,10 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> None:
     """Initialize the multi-host runtime (idempotent). With no arguments,
-    relies on the cluster environment (TPU metadata / env vars) the way
-    jax.distributed.initialize does."""
+    relies on the cluster environment (scheduler env vars) the way
+    jax.distributed.initialize does; where nothing describes the cluster,
+    pass ``coordinator_address`` (e.g. 'localhost:<port>'),
+    ``num_processes`` and ``process_id``."""
     global _initialized
     if _initialized:
         return

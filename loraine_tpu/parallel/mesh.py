@@ -1,7 +1,7 @@
 """Multi-device distribution: mesh + sharding annotations.
 
 The reference is single-process with no distributed backend (SURVEY section 2
-rows 19-21); this module is the greenfield TPU-native equivalent. Strategy
+rows 19-21); this module is the greenfield equivalent. Strategy
 (scaling-book recipe): pick a mesh, annotate shardings on the data, jit the
 unchanged step, and let XLA insert the collectives:
 

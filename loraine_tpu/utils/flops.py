@@ -15,9 +15,10 @@ reference's own accounting, `docs/src/low-rank_data.md:9`):
                    (predictor + corrector) ~ 2 EIG_C (2 nb) m^3
 
 One multiply-add = 2 flops. EIG_C = 9 is the classical tridiagonalization+QR
-n^3 constant; the in-house Jacobi/bound kernels do MORE arithmetic than this
-(sweeps x rotations), so reported utilization is conservative (never
-flattered). Solves, residuals, RHS and elementwise work are O(n^2)/O(nb m^2)
+n^3 constant; the in-house Jacobi eigensolver does MORE arithmetic than this
+(sweeps x rotations), so a rate computed from this model is conservative
+(never flattered). No peak rate lives here: a rate is compared with a peak
+measured on the same device in the same run. Solves, residuals, RHS and elementwise work are O(n^2)/O(nb m^2)
 and omitted. kit=1 adds the H_alpha preparation (one eigendecomposition of W
 per block, the SMW small matrix) and per-CG-iteration matvecs; the
 materialized small-n CG's per-iteration cost is 2 n^2.
@@ -25,11 +26,6 @@ materialized small-n CG's per-iteration cost is 2 n^2.
 from __future__ import annotations
 
 EIG_C = 9.0  # n^3 coefficient of a full symmetric eigendecomposition
-
-# measured f64 matmul ceiling on the attached chip (docs/tpu_notes.md:
-# native f64 a@b at m=800 runs at ~19 TFLOP/s through XLA's multi-pass
-# MXU decomposition)
-F64_PEAK_FLOPS = 19.0e12
 
 
 def group_stats(group):
@@ -109,9 +105,3 @@ def iteration_flops(problem, kit: int = 0, cg_iters_per_ipm: float = 0.0) -> dic
         "total": total,
     }
 
-
-def utilization(flops_per_iter: float, sec_per_iter: float) -> float:
-    """Achieved fraction of the measured f64 matmul ceiling."""
-    if sec_per_iter <= 0:
-        return 0.0
-    return flops_per_iter / sec_per_iter / F64_PEAK_FLOPS

@@ -1,5 +1,5 @@
 """Multi-process distributed solve: 2 CPU processes over jax.distributed
-(Gloo collectives), the mechanics of the multi-host TPU path
+(Gloo collectives), the mechanics of the multi-host path
 (SURVEY section 2 row 20)."""
 import os
 import re

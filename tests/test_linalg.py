@@ -98,3 +98,25 @@ def test_distributed_chol_tri_inv_match_unsharded():
     # the inverse actually inverts: ||I - Li L|| at roundoff class
     resid = np.abs(np.asarray(Li_d) @ np.asarray(L_d) - np.eye(n)).max()
     assert resid < 1e-10
+
+
+@pytest.mark.parametrize("n", [16, 104, 128, 300, 513])
+def test_tri_inv(n):
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n))
+    H = A @ A.T + n * np.eye(n)
+    L = np.linalg.cholesky(H)
+    Li = np.asarray(tri_inv(jnp.asarray(L)))
+    assert np.max(np.abs(Li @ L - np.eye(n))) < 1e-13
+    b = rng.standard_normal(n)
+    x = np.asarray(cho_solve_inv(jnp.asarray(Li), jnp.asarray(b)))
+    assert np.linalg.norm(H @ x - b) / np.linalg.norm(b) < 1e-12
+
+
+def test_tri_inv_batched():
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((3, 60, 60))
+    H = A @ A.transpose(0, 2, 1) + 60 * np.eye(60)
+    L = np.linalg.cholesky(H)
+    Li = np.asarray(tri_inv(jnp.asarray(L)))
+    assert np.max(np.abs(Li @ L - np.eye(60))) < 1e-13

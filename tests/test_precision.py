@@ -2,7 +2,7 @@
 
 The reference reaches beyond-f64 accuracy by instantiating the whole solver
 at MultiFloats Float64xN (`README.md:37-54`, `examples/k.jl`); our
-TPU-native equivalent keeps the iterates in f64 and runs the
+batched equivalent keeps the iterates in f64 and runs the
 precision-critical pieces (Schur assembly, RHS/residual contractions,
 solve refinement, feasibility-exact directions) in double-double
 (`precision='dd'`, ops/dd.py + ops/ozaki.py).

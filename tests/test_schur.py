@@ -125,7 +125,7 @@ def test_dense_chunked_assembly_matches_fused():
 
 
 def test_mixed_assembly_matches_f64():
-    """schur_group_mixed (f32-MXU fast assembly) tracks the exact H to
+    """schur_group_mixed (f32 fast assembly) tracks the exact H to
     f32-accumulate class (~1e-5 relative) on all three storages, and
     schur_lp_mixed on the LP block."""
     import numpy as np
@@ -153,9 +153,10 @@ def test_mixed_assembly_matches_f64():
     G = jnp.linalg.cholesky(W)
     assert relerr(schur_group_mixed(g, W, G), schur_group(g, W, G)) < 1e-5
 
-    # sparse: the SHIPPED mixed path is the f32 second-gather formulation
-    # (schur_group_mixed routes there; the A_flat32 GEMM formulation is
-    # quarantined to the bisect harness after the round-5 TPU fault)
+    # sparse: schur_group_mixed keeps sparse groups on the exact f64
+    # gather path; the two f32 formulations it does not dispatch
+    # (_schur_sparse_mixed, _schur_sparse_f32gather) stay numerically
+    # correct
     As = np.zeros((n, m, m))
     for j in range(n):
         r, c = rng.integers(0, m, 2)
@@ -168,13 +169,13 @@ def test_mixed_assembly_matches_f64():
     gs = ps.groups[0]
     Ws = W[:1]
     assert relerr(schur_group_mixed(gs, Ws, G[:1]), schur_group(gs, Ws, G[:1])) < 1e-5
-    # the quarantined A_flat32 formulation stays numerically correct
-    from loraine_tpu.ops.schur import _schur_sparse_mixed
+    from loraine_tpu.ops.schur import _schur_sparse_f32gather, _schur_sparse_mixed
     from loraine_tpu.problem import ensure_a_flat32
     ps2 = ensure_a_flat32(ps)
     gs2 = ps2.groups[0]
     assert gs2.A_flat32 is not None
     assert relerr(_schur_sparse_mixed(gs2, Ws), schur_group(gs2, Ws, G[:1])) < 1e-5
+    assert relerr(_schur_sparse_f32gather(gs, Ws), schur_group(gs, Ws, G[:1])) < 1e-5
 
     # rank-1
     V = rng.standard_normal((n, m))

@@ -1,5 +1,5 @@
 """Sparse-data storage path: gather-based contractions vs the dense oracle,
-and end-to-end solves routed through sparse storage (the TPU-native
+and end-to-end solves routed through sparse storage (the batched
 equivalent of the reference's three-regime sparse Schur assembly)."""
 import jax
 import jax.numpy as jnp
@@ -93,7 +93,7 @@ def test_datasparsity_option_drives_storage_split(tmp_path):
     """`datasparsity` is the nnz threshold for the dense/sparse kernel split
     (reference `src/model.jl:153-174`, docs/src/Loraine_options.md:52-56):
     0 forces dense, an explicit k makes matrices with nnz <= k sparse at any
-    n, and the default (None) keeps the TPU-tuned auto heuristic."""
+    n, and the default (None) keeps the calibrated auto heuristic."""
     from loraine_tpu.config import Options
     from loraine_tpu.problem import problem_from_sdpa
 
